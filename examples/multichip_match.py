@@ -2,12 +2,13 @@
 
 Runs the COMPLETE match pipeline under one shard_map — each chip builds
 the pyramid for its data-shard frames, scores its slice of the template
-bank, refines its own candidates, and the match lists ride ICI via
-all_gather. Results are bit-identical to the single-device
+bank, refines its own candidates, and the match lists are exchanged
+with all_gather. Results are bit-identical to the single-device
 Detector.match (asserted here).
 
-On a single-host dev box this runs on 8 VIRTUAL CPU devices; on a real
-TPU slice, drop the platform override and the same code spans the chips.
+On a single-host dev box this runs on 8 VIRTUAL CPU devices; on a host
+with several GPUs, drop the platform override and the same code spans the
+cards.
 
 Usage: python examples/multichip_match.py [n_devices]
 """

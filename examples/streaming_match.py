@@ -3,8 +3,9 @@
 The throughput pattern for production serving: keep frames device-
 resident, run `Detector.match_batch(..., as_matches=False)` so nothing
 syncs to the host until YOU decide, and pull one packed array per batch.
-At 360 templates / 1024x1024 this sustains ~450-550 frames/s on one v5e
-chip (the reference's single-threaded CPU match is ~15 fps).
+At 360 templates / 1024x1024 one H100 ran match_batch at about 0.3 ms
+per frame in a B=8 batch (PERF.md; the reference's single-threaded CPU
+match is ~15 fps).
 
 Usage: python examples/streaming_match.py [n_batches]
 """

@@ -1,4 +1,4 @@
-"""shape_based_matching_tpu — TPU-native LINE-2D shape-based template matching.
+"""shape_based_matching_tpu — LINE-2D shape-based template matching on JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 ddcr/shape_based_matching (LINE-2D / LINEMOD gradient-orientation template

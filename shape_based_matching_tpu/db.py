@@ -1,4 +1,4 @@
-"""Plant-database bridge — the Persistence/DAOWrapper capability, TPU-repo way.
+"""Plant-database bridge — the Persistence/DAOWrapper capability.
 
 The reference's jabil driver pulls tag models and their fiducial crops from a
 Qt/SQL plant database through a DAOWrapper singleton

@@ -4,7 +4,7 @@ The reference README advertises icp2D / subpixel / sim3 refinement branches
 (README.md:8-10) that are absent from the mounted tree; upstream's "sim3"
 branch is the 2D similarity group with scale ("deal with scale error" —
 their earlier branch was rotation-only). This module provides the
-capability TPU-natively and goes one model further:
+capability on the device and goes one model further:
 
 * model="sim2" (default): scale + rotation + translation (4 DOF) — the
   upstream sim3 branch's capability;
@@ -42,6 +42,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.gradients import quantized_orientations
+
+# Normal equations in full float32: a GPU would otherwise run float32
+# matmuls and einsums in TF32 (about three decimal digits).
+_HI = jax.lax.Precision.HIGHEST
 
 
 class RefinedPose(NamedTuple):
@@ -164,9 +168,9 @@ def refine_matches(magnitude: jnp.ndarray, angle_deg: jnp.ndarray,
             j_s = (vx * nx + vy * ny) / scale[:, None]       # d/dscale
             J = jnp.stack([nx, ny, j_t, j_s], axis=-1)       # [C, N, 4]
             Wj = J * wgt[..., None]
-            A = jnp.einsum("cni,cnj->cij", Wj, J)
+            A = jnp.einsum("cni,cnj->cij", Wj, J, precision=_HI)
             A = A + jnp.eye(4, dtype=jnp.float32)[None] * 1e-3
-            b = -jnp.einsum("cni,cn->ci", Wj, r)
+            b = -jnp.einsum("cni,cn->ci", Wj, r, precision=_HI)
             delta = jnp.linalg.solve(A, b[..., None])[..., 0]  # [C, 4]
             tx = tx + delta[:, 0]
             ty = ty + delta[:, 1]
@@ -203,9 +207,9 @@ def refine_matches(magnitude: jnp.ndarray, angle_deg: jnp.ndarray,
             J = jnp.stack([nx, ny, fxf * nx, fyf * nx,
                            fxf * ny, fyf * ny], axis=-1)  # [C, N, 6]
             Wj = J * wgt[..., None]
-            A = jnp.einsum("cni,cnj->cij", Wj, J)
+            A = jnp.einsum("cni,cnj->cij", Wj, J, precision=_HI)
             A = A + jnp.eye(6, dtype=jnp.float32)[None] * 1e-3
-            bvec = -jnp.einsum("cni,cn->ci", Wj, r)
+            bvec = -jnp.einsum("cni,cn->ci", Wj, r, precision=_HI)
             delta = jnp.linalg.solve(A, bvec[..., None])[..., 0]
             tx = tx + delta[:, 0]
             ty = ty + delta[:, 1]

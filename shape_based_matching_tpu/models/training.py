@@ -1,6 +1,6 @@
 """Template training: feature extraction from an image + mask.
 
-Split TPU-first: the dense work (gradients, quantization, 5×5 local-max map)
+Split device-first: the dense work (gradients, quantization, 5×5 local-max map)
 runs as fused JAX on device; the tiny order-dependent greedy passes (NMS
 acceptance scan, scattered-feature selection; line2Dup.cpp:452-539,163-212)
 run on host over the short candidate list, where their sequential semantics

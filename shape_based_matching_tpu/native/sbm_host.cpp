@@ -1,6 +1,6 @@
 // Native host-side kernels for the order-dependent greedy algorithms.
 //
-// The TPU handles the dense work; these cover the reference's inherently
+// The device handles the dense work; these cover the reference's inherently
 // sequential host loops, which become the training-side bottleneck when
 // building large (1000+) template banks:
 //   * greedy 5x5 magnitude-NMS acceptance scan (line2Dup.cpp:466-511

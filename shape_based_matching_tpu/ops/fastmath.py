@@ -39,3 +39,37 @@ def phase_deg(dx: jnp.ndarray, dy: jnp.ndarray) -> jnp.ndarray:
     a = jnp.where(x < 0, jnp.float32(180.0) - a, a)
     a = jnp.where(y < 0, jnp.float32(360.0) - a, a)
     return a
+
+
+def exact_ratio_f32(num: jnp.ndarray, den: jnp.ndarray) -> jnp.ndarray:
+    """Correctly rounded float32 num / den for integers 0 <= num < 2**24,
+    1 <= den < 2**16 — the IEEE quotient the reference's CPU computes
+    for scores (raw * 100.f) / (4 * nfeat), line2Dup.cpp:1206.
+
+    XLA on an NVIDIA GPU lowers float32 division to an approximate
+    instruction (up to 2 ulp off: measured on an H100, 27% of score
+    quotients differed by one ulp), which changes match scores and the
+    threshold boundary. Here the quotient is formed by integer long
+    division: X = floor(num / den * 2**F) with F chosen so that X has
+    29-30 bits, the remainder ORed into its lowest bit as a sticky bit,
+    then one correctly rounded int -> float conversion and an exact
+    scale by 2**-F. Elementwise and unrolled (one fused kernel).
+    """
+    import jax
+
+    num = num.astype(jnp.int32)
+    den = den.astype(jnp.int32)
+    approx = num.astype(jnp.float32) / den.astype(jnp.float32)
+    _, e = jnp.frexp(approx)                 # approx in [2**(e-1), 2**e)
+    F = jnp.where(num > 0, 30 - e, 0)        # 5 <= F <= 45 in range
+    X = num // den
+    r = num % den
+    for i in range(46):
+        active = i < F
+        r2 = 2 * r
+        ge = r2 >= den
+        r = jnp.where(active, jnp.where(ge, r2 - den, r2), r)
+        X = jnp.where(active, 2 * X + ge.astype(jnp.int32), X)
+    X = X | (r != 0).astype(jnp.int32)
+    scale = jax.lax.bitcast_convert_type((127 - F) << 23, jnp.float32)
+    return X.astype(jnp.float32) * scale

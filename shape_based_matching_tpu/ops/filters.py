@@ -15,8 +15,8 @@ images so that downstream orientation quantization matches the C++ reference
 * ``resize_nearest`` — cv::resize INTER_NEAREST: src index = floor(i*scale).
 * ``erode3_u8`` — cv::erode 3x3 rect kernel, BORDER_REPLICATE.
 
-All functions are jittable with static shapes and use int32 math (exact, and
-friendly to the TPU VPU). They accept [H, W] or [H, W, C] arrays.
+All functions are jittable with static shapes and use exact integer math.
+They accept [H, W] or [H, W, C] arrays.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ def _sep_axis(x: jnp.ndarray, taps, axis: int) -> jnp.ndarray:
 
 def _pad_axis(x: jnp.ndarray, k: int, axis: int, mode: str) -> jnp.ndarray:
     if mode == "reflect":
-        # BORDER_REFLECT_101 via explicit slices: jnp.pad(mode="reflect")
-        # lowers to a gather on TPU (~100x slower than concat of slices).
+        # BORDER_REFLECT_101 via explicit slices (a concat of slices,
+        # never a gather).
         lo = jax.lax.slice_in_dim(x, 1, k + 1, axis=axis)
         lo = jax.lax.rev(lo, (axis,))
         n = x.shape[axis]
@@ -129,9 +129,9 @@ def pyr_down_u8(img: jnp.ndarray) -> jnp.ndarray:
     Reference call site: line2Dup.cpp:433. Output size is (H//2, W//2)
     (the reference passes Size(cols/2, rows/2) explicitly).
 
-    TPU formulation: the filter+decimate is a pair of banded one-sided
-    matmuls on the MXU (the stride-2 lane subsample is a slow VPU gather —
-    measured 1.37 ms at 1024²; the matmul form is ~30 µs). Bit-exactness:
+    The filter+decimate is a pair of banded one-sided bf16 matmuls with
+    f32 accumulation (measured slightly faster on an H100 than int32
+    shifted adds with stride-2 taps; PERF.md). Bit-exactness:
     uint8 pixels and taps {1,4,6,4,1} are exact in bf16 and all integer
     partial sums stay < 2^24 (exact in the f32 accumulator); the horizontal
     result (<= 4080) is split hi/lo into two exact-bf16 factors for the

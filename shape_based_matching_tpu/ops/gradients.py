@@ -1,10 +1,10 @@
 """Gradient extraction + 8-bin orientation quantization (LINE-2D front end).
 
-TPU-first reformulation of the reference's hysteresisGradient /
+Vectorized reformulation of the reference's hysteresisGradient /
 quantizedOrientations (line2Dup.cpp:218-404):
 
 * the scalar 3x3-histogram majority vote becomes a one-hot vote tensor summed
-  over the 9 neighbor shifts — a handful of fused VPU ops instead of a
+  over the 9 neighbor shifts — a handful of fused elementwise ops instead of a
   per-pixel loop;
 * the color path's "use the channel with the largest squared magnitude"
   becomes a vectorized argmin-free select with the reference's exact tie
@@ -37,6 +37,14 @@ class QuantizedGradients(NamedTuple):
     angle_ori: jnp.ndarray  # [H, W] float32, raw angle in degrees
 
 
+def orientation_bins(angle_deg: jnp.ndarray, n_ori: int = 8) -> jnp.ndarray:
+    """Raw orientation bucket of each angle, before the border mask and
+    the vote: convertTo(CV_8U/CV_16U, 2*n_ori/360) rounds half-to-even
+    (cvRound)."""
+    return jnp.round(angle_deg
+                     * jnp.float32(2.0 * n_ori / 360.0)).astype(jnp.int32)
+
+
 def hysteresis_quantize(magnitude: jnp.ndarray, angle_deg: jnp.ndarray,
                         threshold_sq: jnp.ndarray,
                         n_ori: int = 8,
@@ -58,9 +66,7 @@ def hysteresis_quantize(magnitude: jnp.ndarray, angle_deg: jnp.ndarray,
     pixels contribute no orientation votes.
     """
     h, w = angle_deg.shape
-    # convertTo(CV_8U/CV_16U, 2*n_ori/360) rounds half-to-even (cvRound).
-    q16 = jnp.round(angle_deg
-                    * jnp.float32(2.0 * n_ori / 360.0)).astype(jnp.int32)
+    q16 = orientation_bins(angle_deg, n_ori)
     # Zero borders, then mask to 3 bits (16 -> 0 like the reference's &7).
     border = (
         (jnp.arange(h)[:, None] > 0)

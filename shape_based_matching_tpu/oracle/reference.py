@@ -97,15 +97,24 @@ def fast_atan2_deg(dy: np.ndarray, dx: np.ndarray) -> np.ndarray:
 # Quantization (line2Dup.cpp:218-404)
 # ---------------------------------------------------------------------------
 
+def orientation_bins(angle_deg: np.ndarray, n_ori: int = 8) -> np.ndarray:
+    """convertTo(CV_8U/CV_16U, 2*n_ori/360): OpenCV scales float32 data
+    by a float32 factor (cvt_32f: one float32 product, fma with a zero
+    shift) and cvRounds half-to-even. The product must stay float32:
+    in float64, dx=-764, dy=-627 (219.37498 deg) gives 19.4999986 ->
+    bin 19 at 16 orientations where the float32 product is 19.5 -> 20."""
+    scaled = (angle_deg.astype(np.float32)
+              * np.float32(2.0 * n_ori / 360.0)).astype(np.float32)
+    return np.rint(scaled).astype(np.int32)
+
+
 def hysteresis_quantize(magnitude: np.ndarray, angle_deg: np.ndarray,
                         threshold_sq: float, n_ori: int = 8) -> np.ndarray:
     """Majority-vote quantization. The 3x3 vote is order-independent, so the
     loop is vectorized; np.argmax keeps the C++ first-max-wins tie rule.
     n_ori=16 mirrors the ori_16bit_experiment (CV_16U output)."""
     h, w = angle_deg.shape
-    # convertTo(CV_8U/CV_16U, 2*n_ori/360): cvRound = round-half-to-even.
-    q16 = np.rint(angle_deg.astype(np.float64)
-                  * (2.0 * n_ori / 360.0)).astype(np.int32)
+    q16 = orientation_bins(angle_deg, n_ori)
     q16[0, :] = 0
     q16[-1, :] = 0
     q16[:, 0] = 0
@@ -243,7 +252,7 @@ def similarity(lm: np.ndarray, features, templ_wh, size_wh, T: int) -> np.ndarra
         # (similarity_local below does the same).
         plane = lm[label].reshape(-1)
         start = grid * M + off
-        n = min(positions, plane.shape[0] - start)
+        n = max(0, min(positions, plane.shape[0] - start))
         dst[:n] += plane[start : start + n]
     return dst.reshape(H, W).astype(np.uint16)
 

@@ -20,7 +20,7 @@ Design (exactness-first):
   the very same kernels as the single-chip path, then keeps only the
   candidates whose coarse origin falls in its own band (halo candidates
   are duplicates of a neighbor's) and translates y to frame coordinates.
-* Candidate lists ride ICI via `all_gather`; scores/positions are
+* Candidate lists are exchanged with `all_gather`; scores/positions are
   bit-identical to the single-device full-frame match for every match
   whose geometry stays `halo` away from the band edges — the halo
   default covers the frontend support (blur/sobel/vote/spread/pyrDown,
@@ -46,7 +46,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..ops.similarity import (LevelBank, coarse_extract_dispatch,
                               coarse_similarity_dispatch,
                               distinct_templates, gather_bank,
-                              refine_from_maps, use_pallas_default)
+                              refine_from_maps)
 
 
 def make_spatial_mesh(n_shards: int | None = None) -> Mesh:
@@ -81,8 +81,7 @@ def default_halo(banks, T_levels: tuple) -> int:
 def spatial_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
                        n_shards: int, halo: int, cand_cap: int = 256,
                        distinct_cap: int = 64, gray: bool = True,
-                       n_ori: int = 8, chain_desc=None,
-                       use_pallas: bool | None = None):
+                       n_ori: int = 8, use_pallas: bool | None = None):
     """Jitted row-sharded match for ONE huge frame.
 
     step(tiles [n_shards, Hs + 2*halo, W] u8, weak_threshold, threshold,
@@ -92,11 +91,6 @@ def spatial_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
     `tiles` come from :func:`slice_tiles` (overlapping in-image crops);
     the per-shard band ownership and y translation are derived from the
     same clipped-start arithmetic on the device side.
-
-    `chain_desc`: static half of a delta-chain plan for the (replicated)
-    bank at the TILE's coarse size. When set, the step takes two extra
-    trailing replicated operands (chain meta, emit) and every shard
-    scores through the chain kernel — bit-identical, dense banks only.
     """
     h, w = size_hw
     hs = h // n_shards
@@ -111,24 +105,13 @@ def spatial_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
                          f"of the pyramid stride {stride}")
     sizes = [(w >> l, tile_h >> l) for l in range(levels)]
     t_last = T_levels[-1]
-    w_last = sizes[-1][0] // t_last
-    if use_pallas is None:
-        use_pallas = use_pallas_default()
 
     def per_shard(tile, weak_threshold, threshold, *fields):
         from ..models.detector import _lm_pyramid
 
-        if chain_desc is not None:
-            from ..ops.pallas.chain_plan import ChainPlan
-
-            bank_fields = fields[:-2]
-            chain_plan = ChainPlan(meta=fields[-2], emit=fields[-1])
-        else:
-            bank_fields = fields
-            chain_plan = None
         banks = []
         for l in range(levels):
-            banks.append(LevelBank(*bank_fields[7 * l:7 * (l + 1)]))
+            banks.append(LevelBank(*fields[7 * l:7 * (l + 1)]))
         K = banks[-1].fx.shape[0]
 
         i = jax.lax.axis_index("spatial").astype(jnp.int32)
@@ -136,13 +119,11 @@ def spatial_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
 
         tile2d = tile[0]
         lms = _lm_pyramid(tile2d, jnp.zeros((1, 1), jnp.uint8), gray,
-                          False, T_levels, levels, weak_threshold, n_ori,
-                          False, fused=use_pallas)
+                          False, T_levels, levels, weak_threshold, n_ori)
 
         k, x, y, sc, valid, n_above = coarse_extract_dispatch(
             lms[-1][0], lms[-1][1], banks[-1], t_last, sizes[-1],
-            threshold, cand_cap, use_pallas, chain=chain_plan,
-            chain_desc=chain_desc)
+            threshold, cand_cap, use_pallas)
         # band ownership at the coarse level: the candidate's frame row
         # (coarse pixel coords are level-(levels-1) pixels)
         scale = 2 ** (levels - 1)
@@ -151,14 +132,6 @@ def spatial_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
         valid = valid & (y_frame >= band_lo) & (y_frame < band_lo + hs)
 
         for l in range(levels - 2, -1, -1):
-            if use_pallas:
-                from ..ops.pallas.refine_pallas import (
-                    refine_windows_pallas, window_refine_supported)
-                if window_refine_supported(sizes[l], T_levels[l], n_ori):
-                    k, x, y, sc, valid = refine_windows_pallas(
-                        lms[l][0], banks[l], T_levels[l], sizes[l],
-                        k, x, y, valid, threshold, skip_invalid=True)
-                    continue
             slots, slot_of_k, _nd = distinct_templates(k, valid, K,
                                                        distinct_cap)
             sub = gather_bank(banks[l], slots)
@@ -180,8 +153,6 @@ def spatial_match_step(mesh: Mesh, T_levels: tuple, size_hw: tuple,
         return k, x, y, sc, valid, n_above[None]
 
     bank_specs = tuple(P() for _ in range(7 * levels))
-    if chain_desc is not None:
-        bank_specs = bank_specs + (P(), P())   # replicated plan
     shard = jax.shard_map(
         per_shard,
         mesh=mesh,
@@ -256,26 +227,12 @@ def match_huge_frame(detector, image, threshold: float,
             f"refinement reach + frontend support); near-band-edge "
             f"matches would be inexact — pass halo >= {need} or omit it")
 
-    pallas_on = (use_pallas_default() if use_pallas is None
-                 else bool(use_pallas))
-    levels = detector.pyramid_levels
-    tile_h = h // n + 2 * halo
-    size_last_tile = (w >> (levels - 1), tile_h >> (levels - 1))
-    # the bank is replicated across shards, so the single-device plan at
-    # the TILE size is the right one (Detector._get_chain caches it)
-    chain = (detector._get_chain(banks[-1], size_last_tile)
-             if pallas_on else None)
-
     step = spatial_match_step(mesh, detector.T_at_level, (h, w), n, halo,
                               cand_cap=cand_cap,
                               gray=image.ndim == 2,
                               n_ori=detector.num_orientations,
-                              chain_desc=chain[1] if chain is not None
-                              else None,
                               use_pallas=use_pallas)
     fields = [f for b in banks for f in b]
-    if chain is not None:
-        fields += [chain[0].meta, chain[0].emit]
     tiles = slice_tiles(image, n, halo)
     k, x, y, sc, valid, n_above = step(
         jnp.asarray(tiles), jnp.float32(detector.weak_threshold),

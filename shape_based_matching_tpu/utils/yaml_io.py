@@ -32,8 +32,6 @@ import os
 import re
 from typing import Any
 
-import yaml
-
 
 def _read_text(path: str) -> str:
     if path.endswith(".gz"):
@@ -63,6 +61,8 @@ def load_opencv_yaml(path: str) -> dict:
     # libyaml parses the 2.4 MB case1 registry in 2.4 s vs pure-python
     # safe_load's 12 s (1-CPU host) with identical output; registry load
     # is on the CLI's critical path, so prefer it when available.
+    import yaml  # PyYAML is needed only for persistence, not to match
+
     loader = getattr(yaml, "CSafeLoader", yaml.SafeLoader)
     return yaml.load(text, Loader=loader)
 

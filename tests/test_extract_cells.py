@@ -1,8 +1,9 @@
-"""extract_candidates_cells (native-dtype cells, no [K, M] i32 HBM
-round trip) vs the reference extract_candidates on the i32 map — exact
-equality of (k, x, y, score, valid, n_above), including the packed u8 /
-u16 / XLA-i32 cell routes, position masking, and the negative/zero
-threshold quirk (cells past `positions` count as score 0)."""
+"""extract_candidates_cells (unmasked i32 score cells, one fused compare +
+count pass) vs the reference extract_candidates on the masked i32 map —
+exact equality of (k, x, y, score, valid, n_above), for scores from the
+XLA scan and from the Triton kernel (interpreted), including position
+masking and the negative/zero threshold quirk (cells past `positions`
+count as score 0)."""
 
 import numpy as np
 import pytest
@@ -10,7 +11,7 @@ import pytest
 import jax.numpy as jnp
 
 from shape_based_matching_tpu.ops.similarity import (
-    coarse_cells_dispatch, coarse_similarity, extract_candidates,
+    coarse_similarity, coarse_similarity_dispatch, extract_candidates,
     extract_candidates_cells, pack_level_bank)
 
 
@@ -26,12 +27,7 @@ CASES = [
 
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("use_pallas", [True, False])
-def test_cells_extraction_equals_map_extraction(rng, case, use_pallas,
-                                                monkeypatch):
-    import os
-
-    if use_pallas and not os.environ.get("SBM_TEST_TPU"):
-        monkeypatch.setenv("SBM_PALLAS_INTERPRET", "1")
+def test_cells_extraction_equals_map_extraction(rng, case, use_pallas):
     T, w_img, h_img, K, N, thr = case
     M = (w_img // T) * (h_img // T)
     lm = jnp.asarray(rng.randint(0, 5, (8, T * T, M)).astype(np.uint8))
@@ -47,58 +43,14 @@ def test_cells_extraction_equals_map_extraction(rng, case, use_pallas,
 
     S, _ = coarse_similarity(lmflat, bank, T, (w_img, h_img))
     want = extract_candidates(S, bank.nfeat, jnp.float32(thr), T, W, C)
-    cells, positions, M2 = coarse_cells_dispatch(
-        lm, lmflat, bank, T, (w_img, h_img), use_pallas=use_pallas)
+    cells, positions = coarse_similarity_dispatch(
+        lm, lmflat, bank, T, (w_img, h_img), use_pallas=use_pallas,
+        mask_positions=False, interpret=True)
     got = extract_candidates_cells(cells, positions, bank.nfeat,
-                                   jnp.float32(thr), T, W, C, M2)
+                                   jnp.float32(thr), T, W, C, M)
     va, vb = np.asarray(want[4]), np.asarray(got[4])
     np.testing.assert_array_equal(va, vb)
     for i in range(4):
         np.testing.assert_array_equal(np.asarray(want[i])[va],
                                       np.asarray(got[i])[va])
     assert int(want[5]) == int(got[5])
-
-    if use_pallas:
-        # the words route (native i32 word tiles, no bitcast view) must
-        # agree too — it's the production TPU path
-        from shape_based_matching_tpu.ops.pallas.similarity_pallas import (
-            coarse_words_pallas)
-        from shape_based_matching_tpu.ops.similarity import (
-            extract_candidates_words)
-
-        res = coarse_words_pallas(lm, bank, T, (w_img, h_img))
-        assert res is not None, "packed route expected for these cases"
-        words, positions_w, unit = res
-        np.testing.assert_array_equal(np.asarray(positions),
-                                      np.asarray(positions_w))
-        goww = extract_candidates_words(words, positions_w, bank.nfeat,
-                                        jnp.float32(thr), unit, T, W, C,
-                                        M2)
-        np.testing.assert_array_equal(va, np.asarray(goww[4]))
-        for i in range(4):
-            np.testing.assert_array_equal(np.asarray(want[i])[va],
-                                          np.asarray(goww[i])[va])
-        assert int(want[5]) == int(goww[5])
-
-        # counted route: in-kernel threshold counts + O(C) extraction
-        from shape_based_matching_tpu.ops.pallas.similarity_pallas import (
-            coarse_words_pallas_counted)
-        from shape_based_matching_tpu.ops.similarity import (
-            _rmin_for_threshold, extract_candidates_words_counted)
-
-        rmin, _ = _rmin_for_threshold(bank.nfeat, jnp.float32(thr))
-        resc = coarse_words_pallas_counted(lm, bank, T, (w_img, h_img),
-                                           rmin)
-        assert resc is not None
-        words_c, kcnt, positions_c, unit_c = resc
-        assert unit_c == unit
-        np.testing.assert_array_equal(np.asarray(words_c),
-                                      np.asarray(words))
-        gowc = extract_candidates_words_counted(
-            words_c, kcnt, positions_c, bank.nfeat, jnp.float32(thr),
-            unit, T, W, C, M2)
-        np.testing.assert_array_equal(va, np.asarray(gowc[4]))
-        for i in range(4):
-            np.testing.assert_array_equal(np.asarray(want[i])[va],
-                                          np.asarray(gowc[i])[va])
-        assert int(want[5]) == int(gowc[5])

@@ -23,6 +23,20 @@ def test_phase_deg_vs_cv2(rng):
     assert np.abs(orac - want).max() < 1e-3
 
 
+@pytest.mark.parametrize("n_ori", [8, 16])
+def test_orientation_bins_every_sobel_pair(n_ori):
+    """The orientation bucket of every (dx, dy) a 3x3 Sobel of 8-bit
+    pixels can produce (both in [-1020, 1020]) equals the oracle's:
+    the frontend's bins depend on nothing else. chip_smoke.py runs the
+    same check compiled for the GPU."""
+    v = np.arange(-1020, 1021, dtype=np.float32)
+    dx, dy = np.meshgrid(v, v)
+    got = np.asarray(gradients.orientation_bins(
+        phase_deg(jnp.asarray(dx), jnp.asarray(dy)), n_ori))
+    want = oracle.orientation_bins(oracle.fast_atan2_deg(dy, dx), n_ori)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_hysteresis_quantize_matches_oracle(rng):
     mag = (rng.rand(40, 52).astype(np.float32) * 5000.0)
     ang = (rng.rand(40, 52).astype(np.float32) * 360.0)

@@ -115,8 +115,17 @@ def test_shape_info_save_load(tmp_path):
     assert [(i.angle, i.scale) for i in infos] == [(0.0, 1.0), (45.0, 0.5)]
 
 
-def test_load_reference_infos():
-    infos = ShapeInfoProducer.load_infos(
-        "/root/reference/test/case1/test_info.yaml")
+def test_load_reference_infos(tmp_path):
+    """The case1 angle demo's info list (angle_range [0, 360], 1° steps,
+    as the reference writes to test_info.yaml) survives save/load."""
+    producer = ShapeInfoProducer(np.zeros((16, 16), np.uint8))
+    producer.angle_range = [0.0, 360.0]
+    producer.angle_step = 1.0
+    made = producer.produce_infos()
+    p = str(tmp_path / "test_info.yaml")
+    ShapeInfoProducer.save_infos(made, p)
+    infos = ShapeInfoProducer.load_infos(p)
     assert len(infos) == 361
     assert infos[5].angle == 5.0
+    assert [(i.angle, i.scale) for i in infos] == [
+        (i.angle, i.scale) for i in made]

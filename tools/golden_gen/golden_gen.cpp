@@ -1,4 +1,4 @@
-// Golden-data generator for the TPU rebuild's parity tests.
+// Golden-data generator for the JAX rebuild's parity tests.
 //
 // Textually includes the reference implementation (/root/reference/
 // line2Dup.cpp, read-only mount) so its file-static kernels are reachable,
